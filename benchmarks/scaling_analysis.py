@@ -1,29 +1,18 @@
-"""Multi-device scaling analysis for the sharded generation + Gram design
-(round-4 verdict missing #1).
+"""Collective accounting for the sharded generation + Gram design.
 
-Real multi-chip hardware is not reachable from this environment, and
-CPU-mesh wall times are NOT performance evidence — so this script produces
-the two things a reviewer can actually falsify:
+CPU-mesh wall times are NOT performance evidence, so this script reports
+what a CPU mesh can show exactly:
 
-1. **Measured program structure** on 1/2/4/8 virtual devices: the
+**Program structure** on 1/2/4/8 virtual devices: the
    collective instructions XLA actually emits for (a) the halo-exchange
    sharded generation step and (b) the mesh-sharded Gram column update —
    kind, count, and per-device payload bytes, read from the compiled HLO.
    The analytic byte formulas below are validated against these at a small
-   shape (exact match asserted), then applied at the flagship shape.
-
-2. **A predicted efficiency table** at the flagship per-device workload,
-   combining the validated collective-byte formulas with the MEASURED
-   single-chip rates (BENCH_r04: 3.40e9 samples/s/chip generation;
-   docs/performance.md Gram GEMM timings) and public v5e link numbers
-   (~45 GB/s usable per-direction ICI per chip, ~25 GB/s DCN egress per
-   host) — the "ride ICI, not DCN" layout of parallel/mesh.global_mesh
-   puts the 's' halos + Gram all-reduce on ICI and nothing but the final
-   model gather on DCN.
+   shape (exact match asserted).  Scaling itself is measured on GPUs, not
+   predicted here.
 
 Run:  python benchmarks/scaling_analysis.py   (forces a CPU mesh; safe
-anywhere).  Prints ONE JSON line; commit the output as
-benchmarks/results/scaling_r5.json.
+anywhere).  Prints ONE JSON line.
 """
 
 from __future__ import annotations
@@ -153,51 +142,6 @@ def analyze_gram_column(n_s: int, group: int = 2) -> dict:
             "hlo_flops_total": flops}
 
 
-def predicted_flagship_efficiency() -> dict:
-    """Predicted scaling at the flagship per-device workload, from the
-    validated byte formulas + measured single-chip rates."""
-    # measured single-chip rates (BENCH_r04 / docs/performance.md)
-    GEN_RATE = 3.40e9            # samples/s/chip (grid-points x steps)
-    GEMM_TFLOPS = 20.0e12        # sustained f32 MXU rate, conservative
-    ICI_BW = 45.0e9              # usable B/s per direction per chip (v5e)
-    # flagship shape
-    np3, block, group, ns = 3 * 1024 * 512, 128, 12, 10240
-    jma, nf = 1024, 8
-    w = group * block
-    rows = []
-    for n in (1, 2, 4, 8, 16, 64, 256):
-        # per-column work per device (plane sharded over 's' = n)
-        t_gen = (np3 * block / 3) / n / GEN_RATE * 3   # samples = np3*block
-        t_gemm = 2.0 * (np3 / n) * w * block / GEMM_TFLOPS
-        # ring all-reduce of the (w, block) f32 tile over n devices
-        tile = w * block * 4
-        t_ar = 0.0 if n == 1 else 2.0 * (n - 1) / n * tile / ICI_BW
-        # halo path adds two ppermutes per generated block
-        halo = 2 * (block + 2 * nf) * 3 * (jma + 2 * nf) * nf * 4
-        t_halo = 0.0 if n == 1 else halo / ICI_BW
-        t_comp = t_gen + t_gemm
-        eff = t_comp / (t_comp + t_ar + t_halo)
-        # the DEFAULT exact noise path duplicates full-width noise instead
-        # of exchanging halos: zero generation collectives
-        eff_exact = t_comp / (t_comp + t_ar)
-        rows.append({"devices": n,
-                     "per_col_compute_ms": round(t_comp * 1e3, 3),
-                     "per_col_allreduce_ms": round(t_ar * 1e3, 4),
-                     "per_block_halo_ms": round(t_halo * 1e3, 4),
-                     "predicted_efficiency_halo": round(eff, 4),
-                     "predicted_efficiency_exact": round(eff_exact, 4)})
-    return {"model": "per-Gram-column: compute = generation (measured "
-                     "3.40e9 samples/s/chip) + GEMM (20 TF/s f32); comm = "
-                     "ring all-reduce of the (group*block, block) tile + 2 "
-                     "halo ppermutes, ICI 45 GB/s",
-            "note": "exact noise path has ZERO generation collectives "
-                    "(duplicated full-width noise); halo path shown as the "
-                    "worst case.  Eigen half is replicated host work; "
-                    "projection pass communicates nothing until the final "
-                    "truncated-mode gather (~126 MB once per run).",
-            "rows": rows}
-
-
 def main():
     result = {"halo_generation": [], "gram_column": []}
     for n in (1, 2, 4, 8):
@@ -215,12 +159,7 @@ def main():
                 n, ar, c["analytic_allreduce_tile_bytes"])
     result["validated"] = ("analytic collective-byte formulas equal the "
                            "compiled HLO payloads at every mesh width")
-    result["prediction"] = predicted_flagship_efficiency()
-    print(json.dumps({"metric": "sharded-design collective accounting + "
-                                "predicted scaling efficiency",
-                      "value": result["prediction"]["rows"][3]
-                      ["predicted_efficiency_exact"],
-                      "unit": "efficiency@8dev",
+    print(json.dumps({"metric": "sharded-design collective accounting",
                       "detail": result}))
     return 0
 

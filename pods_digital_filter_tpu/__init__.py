@@ -1,13 +1,14 @@
-"""pods_digital_filter_tpu — TPU-native turbulence-inlet generation + PODFS compression.
+"""pods_digital_filter_tpu — turbulence-inlet generation + PODFS compression
+on an accelerator (an NVIDIA GPU; the CPU for tests).
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
+A from-scratch JAX/XLA framework with the capabilities of the reference
 ``sidbannet/PODS-digital-filter`` pipeline (Klein-2003 digital-filter synthetic
 turbulence + snapshot-POD/Fourier-series "PODFS" compression), re-designed for
-TPU hardware:
+batched device execution:
 
 * the reference's sequential rolling-noise-buffer time loop
   (``digitalfilters.py:1403-1481``) is reformulated as a fully parallel
-  noise -> batched separable 2-D filter (MXU matmuls) -> causal temporal FIR
+  noise -> batched separable 2-D filter (GEMMs) -> causal temporal FIR
   chain — every time window is independently computable (stateless
   counter-indexed PRNG), which is what makes generation shardable over a
   device mesh with zero halo communication for the noise;

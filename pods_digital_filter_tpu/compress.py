@@ -131,6 +131,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from pods_digital_filter_tpu.utils.compile_cache import (
+        enable_compile_cache)
+
+    enable_compile_cache()
     from pods_digital_filter_tpu.postproc.probes import read_inflow_data
     from pods_digital_filter_tpu.variables import VariableSet
 

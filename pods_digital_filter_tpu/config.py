@@ -125,8 +125,8 @@ class PipelineConfig:
     shard_time: int = 1
     # Halo-exchange noise generation over the 's' mesh axis
     # (parallel/sharding.generate_sharded_halo): each device draws only its
-    # own z-tile of noise and exchanges nfz-wide halos over ICI via
-    # lax.ppermute — use for very large planes where duplicating the
+    # own z-tile of noise and exchanges nfz-wide halos with its neighbours
+    # via lax.ppermute — use for very large planes where duplicating the
     # full-width noise per shard dominates.  Statistically equivalent to the
     # exact path, different noise indexing.
     halo_exchange: bool = False
@@ -134,17 +134,13 @@ class PipelineConfig:
     # ("none" disables; see utils/checkpoint.py)
     checkpoint_dir: str = "none"
     checkpoint_block: int = 0           # 0 -> auto block size
-    # Fused Pallas generation kernel (ops/pallas_filter.py): on-core PRNG +
-    # spatial filter in VMEM.  Different (statistically equivalent) noise
-    # stream than the default Threefry path.
-    use_pallas: bool = False
     # Out-of-core POD (streaming.py): never materialize the (3*Np, Ns)
     # snapshot matrix; regenerate blocks of this many steps from the
     # counter-indexed noise stream instead.  0 -> off (in-memory POD).
     streaming_block: int = 0
     # Streaming-POD Gram-pass accelerators (streaming.py:streamed_gram):
-    # gram_group holds this many row blocks HBM-resident during one column
-    # sweep (generations drop ~group-fold, zero host traffic);
+    # gram_group holds this many row blocks device-resident during one
+    # column sweep (generations drop ~group-fold, zero host traffic);
     # streaming_cache ("none"|"ram"|"disk") memoizes generated blocks on the
     # host instead — only a win when the host link outruns regeneration
     # (measured crossover: benchmarks/bench_flagship.py).
@@ -186,11 +182,6 @@ class PipelineConfig:
                 raise ValueError(
                     f"kma={self.plane.kma} not divisible by "
                     f"shard_space={self.shard_space}")
-            if self.use_pallas:
-                raise ValueError(
-                    "--pallas is a single-device generation kernel; it does "
-                    "not compose with --shard_time/--shard_space (the "
-                    "sharded paths use the XLA generator)")
             if self.checkpoint_dir != "none" and not self.streaming_block:
                 raise ValueError(
                     "--checkpoint_dir with sharding requires "

@@ -29,6 +29,17 @@ import numpy as np
 from pods_digital_filter_tpu.variables import VariableSet
 
 
+def require_h5py():
+    """The ``h5py`` module, or an ImportError that names it — HDF5 model
+    files are optional and ``h5py`` is not a dependency of the main path."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("HDF5 model files (-5/--hdf5) need the h5py "
+                          "package, which is not installed") from e
+    return h5py
+
+
 def _point_table(points: np.ndarray, u: np.ndarray) -> np.ndarray:
     ns = u.shape[1]
     tab = np.zeros((points.shape[0], 3 + ns), dtype=np.float64)
@@ -58,8 +69,7 @@ def write_hdf5(
     filename: str = "PODFS.hdf5",
     varset: VariableSet | None = None,
 ) -> str:
-    import h5py
-
+    h5py = require_h5py()
     varset = varset or VariableSet.velocity()
     num_points = points.shape[0]
     nvar = 3 + varset.num_slots
@@ -96,8 +106,7 @@ def write_hdf5(
 def read_hdf5(path: str) -> dict:
     """Load a PODFS.hdf5 back into arrays (tests / replay).  ``mean`` and
     ``modes`` tables are (Np, Nvar); ``vars`` carries the column names."""
-    import h5py
-
+    h5py = require_h5py()
     out = {}
     with h5py.File(path, "r") as f:
         main = f["main"]

@@ -1,21 +1,24 @@
 """Native (C) runtime components, built on demand and bound via ctypes.
 
-The TPU framework's compute path is JAX/XLA/Pallas; this package holds the
-host-side native pieces around it.  Currently: :mod:`fastio` — the
+The framework's compute path is JAX/XLA; this package holds the host-side
+native pieces around it.  Currently: :mod:`fastio` — the
 fixed-width ASCII table writer used by every ``.prf`` exporter (the
 reference's per-cell Python ``"%0.12f"`` loops, PODFS.py:879-884 /
 1739-1745 / 1794-1800, are the export bottleneck at production plane sizes).
 
-The shared library is compiled once per machine with the system C compiler
-into ``<package>/_build/`` (falling back to a temp dir if the package is not
-writable) and loaded with ctypes — no Python.h / pybind11 dependency.  All
-callers degrade gracefully to the pure-Python formatter if no compiler is
-available.
+The shared library is compiled with the system C compiler into
+``<package>/_build/`` (falling back to a temp dir if the package is not
+writable) and loaded with ctypes — no Python.h / pybind11 dependency.  Its
+file name carries a hash of the C sources it is built from, so a library
+built from other sources (say, copied over with a working tree) is never
+loaded.  All callers degrade gracefully to the pure-Python formatter if no
+compiler is available.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -35,16 +38,25 @@ def _build_dirs():
                        f"pods_digital_filter_tpu_native_{os.getuid()}")
 
 
+def library_name(src: str, libname: str) -> str:
+    """``libfoo.so`` -> ``libfoo-<hash of src's contents>.so``."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    stem, ext = os.path.splitext(libname)
+    return f"{stem}-{digest}{ext}"
+
+
 def _compile_src(src: str, libname: str) -> str | None:
-    """Compile one C source into ``<build dir>/<libname>`` (cached on source
-    mtime); returns the library path or None if no compiler succeeds."""
+    """Compile one C source into ``<build dir>/<libname keyed on the
+    source hash>`` (reused when that file exists); returns the library path
+    or None if no compiler succeeds."""
+    name = library_name(src, libname)
     for cc in ("cc", "gcc", "clang"):
         for bdir in _build_dirs():
             try:
                 os.makedirs(bdir, exist_ok=True)
-                out = os.path.join(bdir, libname)
-                src_m = os.path.getmtime(src)
-                if os.path.exists(out) and os.path.getmtime(out) >= src_m:
+                out = os.path.join(bdir, name)
+                if os.path.exists(out):
                     return out
                 tmp = out + f".tmp{os.getpid()}"
                 base = [cc, "-O3", "-shared", "-fPIC", "-o", tmp, src, "-lm"]

@@ -1,4 +1,4 @@
-"""Klein (2003) digital-filter core, TPU-native formulation.
+"""Klein (2003) digital-filter core, batched-GEMM formulation.
 
 Reference semantics (``/root/reference/digitalfilters.py``):
 
@@ -10,16 +10,16 @@ Reference semantics (``/root/reference/digitalfilters.py``):
 * time recursion (lines 1454-1467): ``np.roll(x,-1,axis=0)`` + refill the last
   slab with fresh noise each step.
 
-TPU-first redesign (NOT a port): the rolling-buffer recursion is exactly a
-causal FIR over the time axis, so the whole generation factorizes into three
+Redesign (NOT a port): the rolling-buffer recursion is exactly a causal FIR
+over the time axis, so the whole generation factorizes into three
 embarrassingly-parallel stages:
 
 1. **noise**: stateless counter-indexed PRNG — slab ``s`` of component ``c``
    is a pure function of ``(base_key, c, s)``, so any time window (and any
    shard of it) can be generated independently and reproducibly;
 2. **spatial filter**: the separable valid convolution over (y, z) is applied
-   to *all* slabs at once as two banded-Toeplitz matrix multiplications that
-   run on the MXU (``y = By @ X @ Bz^T`` batched over slabs);
+   to *all* slabs at once as two banded-Toeplitz matrix multiplications
+   (``y = By @ X @ Bz^T`` batched over slabs);
 3. **temporal FIR**: a single valid 1-D convolution along the slab axis.
 
 Because the Gaussian taps are symmetric, correlation == convolution, matching
@@ -27,7 +27,12 @@ scipy's kernel-flipping ``convolve`` exactly.
 
 An ``lax.scan`` streaming driver processes unbounded time series in blocks
 with overlap-save (carrying ``2*nfx`` filtered slabs between blocks), which is
-the TPU analog of the reference's ring buffer.
+the batched analog of the reference's ring buffer.
+
+Every contraction runs at ``Precision.HIGHEST``: a float32 GEMM on the GPU
+otherwise may run in TF32 (~3 decimal digits).  A cheaper precision for the
+filter GEMMs on noise is an open optimisation that must be validated
+statistically first.
 """
 
 from __future__ import annotations
@@ -42,6 +47,13 @@ import numpy as np
 # Uniform noise in (-sqrt(3), sqrt(3)) has unit variance
 # (digitalfilters.py:1344 "pdfr = np.sqrt(3.0)").
 PDFR = float(np.sqrt(3.0))
+
+HIGHEST = jax.lax.Precision.HIGHEST
+
+# Name of the noise stream this generator draws (Threefry, one fold_in per
+# time slab).  Part of every checkpoint fingerprint: a store written with
+# another stream must not resume as if it held the same noise.
+STREAM_TAG = "xla-threefry-v1"
 
 
 # ---------------------------------------------------------------------------
@@ -103,13 +115,14 @@ def noise_slabs(
             k, (num_components, jn, kn), dtype=dtype, minval=-PDFR, maxval=PDFR
         )
 
-    # (num_slabs, C, jn, kn) -> (C, num_slabs, jn, kn)
-    out = jax.vmap(one_slab)(slab_ids)
-    return jnp.moveaxis(out, 0, 1)
+    with jax.named_scope("noise_slabs"):
+        # (num_slabs, C, jn, kn) -> (C, num_slabs, jn, kn)
+        out = jax.vmap(one_slab)(slab_ids)
+        return jnp.moveaxis(out, 0, 1)
 
 
 # ---------------------------------------------------------------------------
-# Spatial filtering: separable valid conv as banded-Toeplitz MXU matmuls
+# Spatial filtering: separable valid conv as banded-Toeplitz matmuls
 # ---------------------------------------------------------------------------
 
 def toeplitz_band(coeffs: np.ndarray | jax.Array, out_len: int) -> jax.Array:
@@ -134,28 +147,28 @@ def filter_spatial(
     kma: int,
 ) -> jax.Array:
     """Separable valid filter over the trailing (y, z) axes for a batch of
-    slabs.  Two dense banded matmuls — both land on the MXU and XLA fuses the
-    intermediate, so this is the speed-of-light formulation for the filter
-    widths this method uses (nf ~ 6..30)."""
+    slabs: two dense banded GEMMs, which the BLAS library handles well for
+    the filter widths this method uses (nf ~ 6..30)."""
     By = toeplitz_band(by, jma)   # (jma, jma+2nfy)
     Bz = toeplitz_band(bz, kma)   # (kma, kma+2nfz)
     dtype = slabs.dtype
     # Both contractions as trailing-axis matmuls with an explicit swap in
-    # between: this "stacked GEMM" form compiles ~30x faster on the TPU
-    # toolchain than the equivalent einsum with a leading contraction.
+    # between (a "stacked GEMM" with no transposed operand).
     # (..., Jn, Kn) @ (Kn, kma) -> (..., Jn, kma)
-    t = jax.lax.dot_general(
-        slabs, Bz.T.astype(dtype),
-        dimension_numbers=(((slabs.ndim - 1,), (0,)), ((), ())),
-        preferred_element_type=dtype,
-    )
-    t = jnp.swapaxes(t, -1, -2)   # (..., kma, Jn)
-    u = jax.lax.dot_general(
-        t, By.T.astype(dtype),
-        dimension_numbers=(((t.ndim - 1,), (0,)), ((), ())),
-        preferred_element_type=dtype,
-    )                              # (..., kma, jma)
-    return jnp.swapaxes(u, -1, -2)
+    with jax.named_scope("filter_spatial_z"):
+        t = jax.lax.dot_general(
+            slabs, Bz.T.astype(dtype),
+            dimension_numbers=(((slabs.ndim - 1,), (0,)), ((), ())),
+            precision=HIGHEST, preferred_element_type=dtype,
+        )
+        t = jnp.swapaxes(t, -1, -2)   # (..., kma, Jn)
+    with jax.named_scope("filter_spatial_y"):
+        u = jax.lax.dot_general(
+            t, By.T.astype(dtype),
+            dimension_numbers=(((t.ndim - 1,), (0,)), ((), ())),
+            precision=HIGHEST, preferred_element_type=dtype,
+        )                              # (..., kma, jma)
+        return jnp.swapaxes(u, -1, -2)
 
 
 def filter_temporal(
@@ -168,15 +181,16 @@ def filter_temporal(
     x-convolution (digitalfilters.py:124, 1454-1467) with the recursion
     unrolled into a batched contraction."""
     nfx2 = bx.shape[0] - 1
-    x = jnp.moveaxis(filtered_slabs, axis, -1)      # (..., jma, kma, T+2nfx)
-    t_out = x.shape[-1] - nfx2
-    Bt = toeplitz_band(bx, t_out)                    # (T, T+2nfx)
-    y = jax.lax.dot_general(
-        x, Bt.T.astype(x.dtype),
-        dimension_numbers=(((x.ndim - 1,), (0,)), ((), ())),
-        preferred_element_type=x.dtype,
-    )                                                # (..., jma, kma, T)
-    return jnp.moveaxis(y, -1, axis)
+    with jax.named_scope("filter_temporal"):
+        x = jnp.moveaxis(filtered_slabs, axis, -1)  # (..., jma, kma, T+2nfx)
+        t_out = x.shape[-1] - nfx2
+        Bt = toeplitz_band(bx, t_out)                # (T, T+2nfx)
+        y = jax.lax.dot_general(
+            x, Bt.T.astype(x.dtype),
+            dimension_numbers=(((x.ndim - 1,), (0,)), ((), ())),
+            precision=HIGHEST, preferred_element_type=x.dtype,
+        )                                            # (..., jma, kma, T)
+        return jnp.moveaxis(y, -1, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -228,9 +242,9 @@ def generate_correlated_noise(
     no sequential dependency: slab noise is counter-indexed, the spatial
     filter is batched over all slabs, and the time FIR is one contraction.
 
-    The filter taps are built on the host and threaded in as device
-    *arguments* — embedding them as HLO literals takes a pathologically slow
-    path in some TPU compile services.
+    The filter taps are built on the host and passed as jit *arguments*
+    rather than embedded as constants, so one compiled program serves every
+    tap set of the same shape.
     """
     bx = gaussian_fir_coeffs(nfx, lnx, dtype)
     by = gaussian_fir_coeffs(nfy, lny, dtype)
@@ -256,7 +270,7 @@ def generate_correlated_noise_scan(
 ) -> jax.Array:
     """Streaming variant: ``lax.scan`` over time blocks with overlap-save.
 
-    The carry is the trailing ``2*nfx`` *spatially filtered* slabs — the TPU
+    The carry is the trailing ``2*nfx`` *spatially filtered* slabs — the
     analog of the reference ring buffer, but carrying the (jma, kma)-sized
     filtered slabs instead of the (jma+2nfy, kma+2nfz) raw noise, so the
     carried state is smaller and the spatial filter runs once per slab.

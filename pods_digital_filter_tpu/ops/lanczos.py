@@ -11,8 +11,7 @@ resident in HBM (round-4 verdict weak #1a).
 This module runs the whole vector stage on the device: an ``m``-step
 Lanczos recurrence with full (twice-iterated classical Gram-Schmidt)
 reorthogonalization, compiled as ONE ``lax.scan`` program — a single
-dispatch whose cost is ``m`` HBM sweeps of the (Ns, Ns) matrix (~0.13 s at
-the flagship size for m = 256 at ~800 GB/s, vs 25 s on the host).  Only the
+dispatch whose cost is ``m`` memory sweeps of the (Ns, Ns) matrix.  Only the
 (m,)-sized tridiagonal coefficients and the final (Ns, k) Ritz vectors
 cross the host boundary.
 
@@ -25,6 +24,10 @@ Trust but verify: Ritz residuals ``|beta_m * y_m[j]|`` are computed from
 the tridiagonal eigenproblem and returned so the caller can fall back to
 the host path when the Krylov space was too small (clustered interior
 spectra) — see :func:`topk_or_none`.
+
+Every matvec, reorthogonalization and back-transform runs at
+``Precision.HIGHEST`` (:func:`_mm`): in TF32 the recurrence would lose the
+orthogonality the spectrum depends on.
 """
 
 from __future__ import annotations
@@ -34,6 +37,13 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    """``a @ b`` at full float32/float64 precision (never TF32)."""
+    return jnp.matmul(a, b, precision=HIGHEST)
 
 
 def _as_global(x_host, ref):
@@ -72,10 +82,8 @@ def _lanczos_scan(Csym, m: int, seed: int = 0):
 
     The basis is stored ROW-major — one Lanczos vector per row, inserted
     with a contiguous major-axis ``dynamic_update_slice``.  A column-major
-    buffer with ``Q.at[:, i].set(q)`` is numerically identical but takes
-    XLA ~6 MINUTES to compile at (10240, 256) on this backend (the strided
-    in-scan scatter; measured 386 s vs 0.8 s for this formulation —
-    runtime is 0.18 s either way)."""
+    buffer with ``Q.at[:, i].set(q)`` is numerically identical but its
+    strided in-scan scatter compiles far more slowly."""
     n = Csym.shape[0]
     dt = Csym.dtype
     tiny = jnp.asarray(np.finfo(np.dtype(dt)).tiny ** 0.5, dt)
@@ -87,14 +95,14 @@ def _lanczos_scan(Csym, m: int, seed: int = 0):
     q0 = q0 / jnp.linalg.norm(q0)
 
     def reorth(Q, w):
-        w = w - Q.T @ (Q @ w)
-        return w - Q.T @ (Q @ w)
+        w = w - _mm(Q.T, _mm(Q, w))
+        return w - _mm(Q.T, _mm(Q, w))
 
     def body(carry, i):
         Q, q, beta_prev, q_prev = carry
         Q = jax.lax.dynamic_update_slice(Q, q[None, :], (i, jnp.int32(0)))
-        w = Csym @ q
-        alpha = q @ w
+        w = _mm(Csym, q)
+        alpha = _mm(q, w)
         w = w - alpha * q - beta_prev * q_prev
         w = reorth(Q, w)
         beta = jnp.linalg.norm(w)
@@ -118,7 +126,7 @@ def _lanczos_scan(Csym, m: int, seed: int = 0):
 @jax.jit
 def _ritz_vectors(Q, Y):
     """Ritz back-transform ``V = Q^T Y`` for the (m, n) row-major basis."""
-    return Q.T @ Y
+    return _mm(Q.T, Y)
 
 
 def lanczos_topk(C_sym, k: int, m: int | None = None, seed: int = 0):
@@ -129,12 +137,10 @@ def lanczos_topk(C_sym, k: int, m: int | None = None, seed: int = 0):
     everywhere in this pipeline; the PODFS replay is sign-invariant).
     ``m`` is the Krylov dimension: default generous (512 for the flagship
     k = 20), clamped to n, where it degenerates to an exact full
-    tridiagonalization.  The default is sized for the WORST measured
-    case — the flagship turbulence Gram, whose top spectrum is nearly
-    flat (lambda_19/lambda_0 = 0.97): m = 256 leaves 1.3e-2 Ritz
-    residuals there (quality gate trips -> 37 s host ARPACK fallback)
-    while m = 512 converges to machine precision in 3.4 s of device time
-    (measured round 5); the sweep cost is linear in m and tiny."""
+    tridiagonalization.  The default is sized for the flagship turbulence
+    Gram, whose top spectrum is nearly flat (lambda_19/lambda_0 ~ 0.97):
+    m = 256 leaves Ritz residuals that trip the quality gate there, m = 512
+    converges; the sweep cost is linear in m."""
     n = C_sym.shape[0]
     k = max(1, min(int(k), n))
     if m is None:
@@ -168,16 +174,15 @@ def full_spectrum(C_sym, seed: int = 0) -> np.ndarray:
     ``C`` — followed by a host tridiagonal eigenvalue solve (LAPACK
     ``stemr``/``sterf``-class, O(n^2), seconds at n = 10,240).
 
-    This replaces the ~63 s host ``dsyevd`` (2-core host) with ~25 s of
-    device time at the flagship size: the O(n^3)-equivalent work (n
-    matvecs + basis reorthogonalization) is HBM-bandwidth-bound GEMV
-    sweeps the MXU pipeline eats, and it runs while the host exports the
+    This replaces the host ``dsyevd`` with device work: the
+    O(n^3)-equivalent work (n matvecs + basis reorthogonalization) is
+    bandwidth-bound GEMV sweeps, and it runs while the host exports the
     model.  Accuracy: eigenvalues to ~eps(|dtype|)*||C|| — in float32
     that is the same ~1e-7*lambda_0 noise floor the f32-accumulated Gram
     itself carries, so the trailing "valid"-mode count can differ from a
     float64 host solve ONLY for eigenvalues that are pure accumulation
-    noise in either method (documented in docs/performance.md); in
-    float64 (CPU tests) it matches ``eigvalsh`` to ~1e-12.  Returns None
+    noise in either method; in float64 (CPU tests) it matches
+    ``eigvalsh`` to ~1e-12.  Returns None
     if anything came out non-finite (caller falls back to the host
     solver)."""
     from pods_digital_filter_tpu.parallel.mesh import to_host
@@ -203,8 +208,7 @@ def _block_lanczos_scan(Csym, b: int, steps: int, seed: int = 0):
 
     Why blocks: the scalar recurrence reads the (n, n) matrix and the
     (n, n) basis ~5x per VECTOR; the block version reads them ~5x per
-    BLOCK — an 8x cut in HBM traffic for b = 8 (the flagship full
-    spectrum drops from ~35 s to ~4 s of device time).
+    BLOCK — an 8x cut in memory traffic for b = 8.
 
     Per step: matvec block ``U = W C`` (C read once), diagonal block
     ``A = U W^T`` (symmetrized), CGS2 reorthogonalization against the
@@ -222,31 +226,29 @@ def _block_lanczos_scan(Csym, b: int, steps: int, seed: int = 0):
     tiny = jnp.asarray(np.finfo(np.dtype(dt)).tiny ** 0.5, dt)
 
     def cgs2(Q, U):
-        U = U - (U @ Q.T) @ Q
-        return U - (U @ Q.T) @ Q
+        U = U - _mm(_mm(U, Q.T), Q)
+        return U - _mm(_mm(U, Q.T), Q)
 
     def orthonormal_rows(U, Q, key_i):
         """W with orthonormal rows spanning U's row space; deficient rows
         (Krylov closure) replaced by random complements.
 
         Implemented as a STATICALLY-UNROLLED modified Gram-Schmidt over
-        the b rows — pure dot/axpy/where vector ops.  A b x b
-        ``jnp.linalg.eigh``-based orthonormalization is mathematically
-        nicer but its TPU lowering inside a scan CRASHES this backend's
-        worker outright at the flagship size (measured round 5); MGS with
-        a second pass is numerically adequate at b = 8 and lowers to
-        nothing but reductions."""
+        the b rows — pure dot/axpy/where vector ops that lower to nothing
+        but reductions; MGS with a second pass is numerically adequate at
+        b = 8.  (A b x b ``jnp.linalg.eigh``-based orthonormalization would
+        be the alternative.)"""
         u_scale = jnp.maximum(jnp.max(jnp.linalg.norm(U, axis=1)), tiny)
         thresh = (b * 10 * eps) * u_scale
         W = jnp.zeros((b, n), dt)
         for r in range(b):
             v = U[r]
             for _ in range(2):                 # MGS x2 against built rows
-                v = v - (W @ v) @ W
+                v = v - _mm(_mm(W, v), W)
             nrm = jnp.linalg.norm(v)
             rnd = jax.random.normal(jax.random.fold_in(key_i, r), (n,), dt)
             rnd = cgs2(Q, rnd[None, :])[0]
-            rnd = rnd - (W @ rnd) @ W
+            rnd = rnd - _mm(_mm(W, rnd), W)
             rnd = rnd / jnp.maximum(jnp.linalg.norm(rnd), tiny)
             v = jnp.where(nrm > thresh, v / jnp.maximum(nrm, tiny), rnd)
             W = W.at[r].set(v)
@@ -255,12 +257,12 @@ def _block_lanczos_scan(Csym, b: int, steps: int, seed: int = 0):
     def body(carry, i):
         Q, W = carry
         Q = jax.lax.dynamic_update_slice(Q, W, (i * b, jnp.int32(0)))
-        U = W @ Csym
-        A = U @ W.T
+        U = _mm(W, Csym)
+        A = _mm(U, W.T)
         A = (A + A.T) * 0.5
         U = cgs2(Q, U)                          # removes A, B couplings too
         W_next = orthonormal_rows(U, Q, jax.random.fold_in(key, i))
-        E = U @ W_next.T                        # T[block i+1, block i]
+        E = _mm(U, W_next.T)                    # T[block i+1, block i]
         return (Q, W_next), (A, E)
 
     # start block: random rows orthonormalized in-graph (empty basis)
@@ -316,10 +318,8 @@ def spectrum_and_topk(C_sym, k: int, seed: int = 0,
     pipeline tail is synchronous — no worker threads, no deferred
     spectrum, no optimistic shrink-redo.  NOT used in float32: the MGS
     block orthonormalization leaves ~1.5e-3 relative spectrum error
-    there (the scalar recurrence reaches ~1e-7), and this TPU backend
-    kernel-faults executing the block scan at (10240, b=8) — both
-    measured round 5; the f32 streaming path uses :func:`topk_or_none` +
-    :func:`full_spectrum` instead.  Quality gates (caller falls back to
+    there (the scalar recurrence reaches ~1e-7); the f32 streaming path
+    uses :func:`topk_or_none` + :func:`full_spectrum` instead.  Quality gates (caller falls back to
     the scalar/host paths on ``None``): finiteness, trace identity
     ``|sum(lambda) - tr(C)| <= tol * tr``, and top-k Ritz residuals
     ``||C v - lambda v|| <= tol * |lambda_0|``.
@@ -356,7 +356,7 @@ def spectrum_and_topk(C_sym, k: int, seed: int = 0,
         np.asarray(yk, np.dtype(C_sym.dtype)), C_sym))       # (n, k)
     # Ritz residual gate on the returned vectors
     lam = _as_global(np.asarray(wk, np.dtype(C_sym.dtype)), C_sym)
-    Rres = C_sym @ V - V * lam[None, :]
+    Rres = _mm(C_sym, V) - V * lam[None, :]
     res = to_host(jnp.linalg.norm(Rres, axis=0))
     lam0 = max(float(np.max(np.abs(w))), 1e-300)
     if np.max(res) > rel_tol * lam0 * 50.0:

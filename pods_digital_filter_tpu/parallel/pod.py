@@ -27,6 +27,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from pods_digital_filter_tpu.ops import pod as pod_ops
 from pods_digital_filter_tpu.parallel.mesh import put_global, to_host
 
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 @dataclass
 class DistributedPODResult:
@@ -53,7 +55,7 @@ def _center_and_gram_impl(X: jax.Array):
     ns = X.shape[1]
     mean = jnp.mean(X, axis=1)
     Xc = X - mean[:, None]
-    C = jnp.einsum("ctjk,cujk->tu", Xc, Xc,
+    C = jnp.einsum("ctjk,cujk->tu", Xc, Xc, precision=HIGHEST,
                    preferred_element_type=X.dtype) / ns
     return mean, Xc, C
 
@@ -77,7 +79,7 @@ def _center_and_gram_fn(mesh: Mesh):
 def _spatial_modes_fields(Xc: jax.Array, M: jax.Array):
     """Phi = Xc contracted with M (M already includes the 1/(Ns*lam) scaling
     of PODFS.py:1329-1333)."""
-    return jnp.einsum("ctjk,tm->cmjk", Xc, M,
+    return jnp.einsum("ctjk,tm->cmjk", Xc, M, precision=HIGHEST,
                       preferred_element_type=Xc.dtype)
 
 

@@ -14,7 +14,7 @@ z-tiles):
 2. :func:`generate_sharded_halo` — **halo-exchange** path for very large
    planes.  Each device draws only its own z chunk of noise (keyed by
    ``(slab, tile)``) and exchanges ``nfz``-wide halos with its mesh neighbors
-   via ``lax.ppermute`` over the 's' axis — the TPU/ICI analog of the
+   via ``lax.ppermute`` over the 's' axis — the collective analog of the
    reference's MPI Send/Recv assembly (nsigproclib_no_mpi.py:364-482).
    Statistically identical to (1) but not bit-identical (different noise
    indexing).
@@ -117,8 +117,8 @@ def generate_sharded_halo(
     Per z-tile noise ownership: tile ``si`` draws the ``tk`` interior columns
     aligned with its output tile, keyed ``fold_in(fold_in(key, slab), si)``;
     the two outer pads (nfz columns each) are drawn by the edge tiles with
-    dedicated sub-keys.  Interior halos move over ICI with two ppermute
-    shifts.  Requires ``nfz <= tk``.
+    dedicated sub-keys.  Interior halos move between devices with two
+    ppermute shifts.  Requires ``nfz <= tk``.
     """
     bt, tk = _check_divisible(nsteps, kma, mesh)
     if nfz > tk:
@@ -157,7 +157,7 @@ def generate_sharded_halo(
         left_pad = jnp.moveaxis(left_pad, 0, 1)
         right_pad = jnp.moveaxis(right_pad, 0, 1)
 
-        # halo exchange over ICI: my last nfz cols -> right neighbor's left
+        # halo exchange: my last nfz cols -> right neighbor's left
         # halo; my first nfz cols -> left neighbor's right halo.
         from_left = _ppermute_shift(interior[..., -nfz:], "s", +1, n_s)
         from_right = _ppermute_shift(interior[..., :nfz], "s", -1, n_s)
@@ -192,4 +192,5 @@ def distributed_gram(A: jax.Array, num_snapshots: int) -> jax.Array:
     """Gram matrix of a sharded snapshot matrix.  With A sharded P('s','t'),
     XLA lowers this to per-shard partial products + an all-reduce over 's'
     and all-gathers over 't' — the psum design of SURVEY.md §5.8."""
-    return jnp.dot(A.T, A, preferred_element_type=A.dtype) / num_snapshots
+    return jnp.dot(A.T, A, precision=jax.lax.Precision.HIGHEST,
+                   preferred_element_type=A.dtype) / num_snapshots

@@ -1,6 +1,6 @@
 """Time-axis collectives: temporal interpolation + phase averaging.
 
-TPU-native replacement for the reference's dead mpi4py layer
+Collective-based replacement for the reference's dead mpi4py layer
 (nsigproclib_no_mpi.py): ``temporal_interpolation(_mult)_MPI`` (691-877)
 fetched remote-rank snapshot columns through one-sided RMA windows
 (Win.Create/Lock/Get/Unlock, 553-564) and ``phase_average_MPI`` (507-688)

@@ -2,7 +2,7 @@
 snapshot matrix -> POD -> Fourier compression -> PODFS export.
 
 Mirrors the reference ``main()`` call stack (digitalfilters.py:1134-1513) with
-the TPU-native stages of :mod:`pods_digital_filter_tpu.ops`.
+the batched device stages of :mod:`pods_digital_filter_tpu.ops`.
 """
 
 from __future__ import annotations
@@ -141,7 +141,7 @@ def make_generator(
     the streaming Gram pass gets centered blocks with zero extra HBM
     buffers (a separate centering op would materialize a second full-block
     temporary — at the flagship block size that is the difference between
-    fitting in HBM and OOM)."""
+    fitting in device memory and running out)."""
     nsteps = cfg.nsteps if nsteps is None else nsteps
     dtype = jnp.dtype(cfg.dtype)
     key = jax.random.key(cfg.seed)
@@ -150,27 +150,15 @@ def make_generator(
     stresses = tuple(jnp.asarray(s, dtype=dtype) for s in fields.stresses())
     means = tuple(jnp.asarray(m, dtype=dtype) for m in fields.means())
 
-    # Stress/mean fields are jit *arguments*, not closure constants — large
-    # HLO literals hit a pathologically slow remote-compile path on TPU.
+    # Stress/mean fields are jit *arguments*, not closure constants, so the
+    # compiled program carries no plane-sized literals.
     def body(t0, key, stresses, means):
-        if cfg.use_pallas:
-            from pods_digital_filter_tpu.ops import pallas_filter
-
-            noise = pallas_filter.generate_correlated_noise_fused(
-                cfg.seed, t0, nsteps, p.jma, p.kma,
-                filt.nfx, filt.nfy, filt.nfz,
-                filt.length_scale_x, filt.length_scale_y, filt.length_scale_z,
-                num_components=3, dtype=dtype,
-                matmul_dtype=(jnp.bfloat16 if cfg.dtype == "bfloat16"
-                              else jnp.float32),
-            )
-        else:
-            noise = filters.generate_correlated_noise(
-                key, t0, nsteps, p.jma, p.kma,
-                filt.nfx, filt.nfy, filt.nfz,
-                filt.length_scale_x, filt.length_scale_y, filt.length_scale_z,
-                num_components=3, dtype=dtype,
-            )  # (3, Ns, jma, kma)
+        noise = filters.generate_correlated_noise(
+            key, t0, nsteps, p.jma, p.kma,
+            filt.nfx, filt.nfy, filt.nfz,
+            filt.length_scale_x, filt.length_scale_y, filt.length_scale_z,
+            num_components=3, dtype=dtype,
+        )  # (3, Ns, jma, kma)
         # broadcast per-k (kma,) or (jma,kma) stats against (Ns, jma, kma)
         colored = lund.apply_lund_stacked(noise, stresses, means)
         A = _pack_snapshots(colored)

@@ -1,6 +1,6 @@
 """Legacy LES-postprocessing subsystem (VTK-free).
 
-TPU-native re-design of the reference's secondary input path: instead of
+Batched re-design of the reference's secondary input path: instead of
 synthesizing turbulence, sample planes out of existing LES volume snapshots
 (or read ``inflow.%06i`` files) and feed them to the same POD + Fourier
 compression stack.  Reference components: ``extract_plane`` (PODFS.py:515-581),

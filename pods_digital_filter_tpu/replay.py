@@ -7,16 +7,17 @@ its inlet every timestep (docs/usage/CFDCodeIntegration.rst:85-91):
              + sum_i phi_i(x) * Re[ sum_j b_{i,j} * exp(2*pi*1j*k_{i,j}*t/T) ]
 
 but ships no implementation of it (the solver-side code lives in external
-projects, CFDCodeIntegration.rst:96-115).  This module provides a TPU-native
-one: load a saved model from either on-disk format (``PODFS.dat`` +
+projects, CFDCodeIntegration.rst:96-115).  This module provides a JAX one:
+load a saved model from either on-disk format (``PODFS.dat`` +
 ``PODFS_mean.prf``/``PODFS_mode_%04i.prf``, or ``PODFS.hdf5``) and evaluate
 it at arbitrary times as one jitted kernel —
 
 * the temporal factors ``b_i(t)`` for a batch of times are a dense
   ``cos``/``sin`` contraction over the zero-padded per-mode coefficient
   table (padding coefficients are exactly zero, so no masking is needed);
-* the spatial superposition is a single ``(Nt, nm) @ (nm, 3*Np)`` matmul —
-  MXU-shaped, so replaying thousands of timesteps is one GEMM.
+* the spatial superposition is a single ``(Nt, nm) @ (nm, 3*Np)`` matmul at
+  ``Precision.HIGHEST`` (never TF32), so replaying thousands of timesteps is
+  one GEMM.
 
 This doubles as the strongest possible format test: generation -> export ->
 load -> replay must reproduce the truncated-series reconstruction exactly
@@ -76,7 +77,7 @@ def read_field_prf(path: str):
 
 @dataclass
 class PODFSModel:
-    """A loaded PODFS model, padded to rectangular arrays for the TPU.
+    """A loaded PODFS model, padded to rectangular arrays for the device.
 
     ``k/c_re/c_im`` are (nm, kmax) with zero-padded coefficients — a zero
     coefficient contributes nothing, so the ragged per-mode counts need no
@@ -210,6 +211,7 @@ def load_model(path: str) -> PODFSModel:
 # --------------------------------------------------------------------------
 
 def _eval_kernel(ts, k, c_re, c_im, modes, mean, period, alpha):
+    import jax
     import jax.numpy as jnp
 
     # theta[t, i, j] = 2*pi * k[i,j] * ts[t] / T
@@ -217,8 +219,8 @@ def _eval_kernel(ts, k, c_re, c_im, modes, mean, period, alpha):
     # b[t, i] = Re( sum_j c * exp(1j*theta) )  — zero-padded coeffs drop out
     b = jnp.sum(c_re[None] * jnp.cos(theta) - c_im[None] * jnp.sin(theta),
                 axis=-1)
-    # (Nt, nm) @ (nm, 3Np) — one MXU GEMM for the whole batch of timesteps
-    fields = b @ modes
+    # (Nt, nm) @ (nm, 3Np) — one GEMM for the whole batch of timesteps
+    fields = jnp.matmul(b, modes, precision=jax.lax.Precision.HIGHEST)
     return alpha * mean[None, :] + fields
 
 
@@ -306,6 +308,10 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from pods_digital_filter_tpu.utils.compile_cache import (
+        enable_compile_cache)
+
+    enable_compile_cache()
     model = load_model(args.model)
     rp = Replayer(model)
 

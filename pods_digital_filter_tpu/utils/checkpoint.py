@@ -5,7 +5,7 @@ are the never-used ``restart_dir``/``restart_flag`` POD parameters
 (PODFS.py:1294, called with ``'PODFS/'``, ``'false'`` at
 digitalfilters.py:1500) and the per-step ``.prf`` dumps under ``-v``.
 
-The TPU rebuild makes resume natural: generation is *stateless* — noise
+This rebuild makes resume natural: generation is *stateless* — noise
 slabs are counter-indexed from ``(seed, t0)`` (ops/filters.py), so any time
 block can be recomputed independently, and a checkpoint only needs to record
 (a) the config fingerprint and (b) which blocks are done, plus their
@@ -212,6 +212,17 @@ class GramCheckpoint:
             return z["strip"]
 
 
+def generation_fingerprint(cfg, filt, fields, rotate: bool) -> str:
+    """Key of a :class:`GenerationCheckpoint`: everything that determines
+    the generated values.  `fields` (the resolved stress/mean arrays) is
+    part of it (every generated value depends on it through the Lund
+    coloring), as is the noise stream the generator draws."""
+    from pods_digital_filter_tpu.ops.filters import STREAM_TAG
+
+    return config_fingerprint((cfg.plane, filt, cfg.seed, cfg.dtype, rotate,
+                               fields, STREAM_TAG))
+
+
 def generate_with_checkpoints(
     cfg,
     fields,
@@ -231,16 +242,7 @@ def generate_with_checkpoints(
     from pods_digital_filter_tpu.pipeline import generate_snapshot_matrix
 
     block = block or min(cfg.nsteps, 256)
-    # `fields` (the resolved stress/mean arrays) is part of the key (every
-    # generated value depends on it through the Lund coloring), as is the
-    # noise-stream variant the config resolves to (XLA / full-slab Pallas /
-    # tiled Pallas produce different values for the same seed)
-    from pods_digital_filter_tpu.ops.pallas_filter import generation_stream_tag
-
-    stream = generation_stream_tag(cfg.use_pallas, cfg.plane.jma,
-                                   cfg.plane.kma, filt.nfy, filt.nfz)
-    fp = config_fingerprint((cfg.plane, filt, cfg.seed, cfg.dtype, rotate,
-                             fields, stream))
+    fp = generation_fingerprint(cfg, filt, fields, rotate)
     store = GenerationCheckpoint(checkpoint_dir, fp, cfg.nsteps, block)
 
     for t0 in store.pending():

@@ -3,7 +3,7 @@
 These functions re-state the *mathematical contract* of the reference
 (sequential rolling-buffer digital filter, per-point Lund factor, Gram-matrix
 POD, direct shifted DFT) in plain modern numpy, and exist solely so the tests
-can A/B the TPU-native batched formulation against the original sequential
+can A/B the batched device formulation against the original sequential
 one on identical inputs.  They are deliberately slow and direct.
 """
 

@@ -1,6 +1,7 @@
 """Resumable generation checkpoints (utils/checkpoint.py)."""
 
 import numpy as np
+import pytest
 
 from pods_digital_filter_tpu.config import (FilterConfig, PipelineConfig,
                                             PlaneConfig)
@@ -55,12 +56,7 @@ def test_resume_skips_completed_blocks(tmp_path):
 def test_partial_resume_regenerates_missing(tmp_path):
     cfg = _tiny_cfg(tmp_path)
     fields, dt, filt, cfg, rotate = resolve_profile(cfg)
-    from pods_digital_filter_tpu.ops.pallas_filter import generation_stream_tag
-
-    stream = generation_stream_tag(cfg.use_pallas, cfg.plane.jma,
-                                   cfg.plane.kma, filt.nfy, filt.nfz)
-    fp = ckpt.config_fingerprint((cfg.plane, filt, cfg.seed, cfg.dtype, True,
-                                  fields, stream))
+    fp = ckpt.generation_fingerprint(cfg, filt, fields, True)
     store = ckpt.GenerationCheckpoint(str(tmp_path / "ck"), fp, 8, 4)
     # simulate a killed run: only block 0 saved
     cols = np.asarray(generate_snapshot_matrix(cfg, fields, filt, t0=0,
@@ -108,3 +104,26 @@ def test_config_change_invalidates(tmp_path):
                                    block=4, rotate=rotate,
                                    progress=lambda t0, n: calls.append(t0))
     assert calls == [0, 4]         # different fingerprint -> regenerate all
+
+
+# Fingerprints of this configuration as stores written before the fused
+# generation kernel and its flag were removed recorded them; a store on disk
+# from then must still resume.
+_PRE_REMOVAL_FINGERPRINTS = {"generation": "8d36894d5bdb6685",
+                             "gram": "e303940a6ace3614"}
+
+
+@pytest.mark.parametrize("kind", sorted(_PRE_REMOVAL_FINGERPRINTS))
+def test_fingerprint_of_older_stores_still_matches(tmp_path, kind):
+    from pods_digital_filter_tpu.streaming import make_gram_store
+
+    cfg = PipelineConfig(
+        plane=PlaneConfig(jma=6, kma=8, res=0.1),
+        filt=FilterConfig(1.0, 1.0, 1.0, 2.0), nsteps=12, seed=3,
+        checkpoint_dir=str(tmp_path / "ck"))
+    fields, dt, filt, cfg, rotate = resolve_profile(cfg)
+    if kind == "generation":
+        fp = ckpt.generation_fingerprint(cfg, filt, fields, rotate)
+    else:
+        fp = make_gram_store(cfg, filt, fields, rotate, 4).fingerprint
+    assert fp == _PRE_REMOVAL_FINGERPRINTS[kind]

@@ -31,7 +31,7 @@ def test_toeplitz_band_matches_convolve_valid(rng):
 
 
 def test_generate_matches_sequential_oracle():
-    """Batched TPU formulation == reference's sequential rolling-buffer filter
+    """Batched formulation == reference's sequential rolling-buffer filter
     on identical noise (the reference's own A/B oracle methodology,
     digitalfilters.py:1407-1438)."""
     jma, kma, nsteps = 7, 9, 12
@@ -107,3 +107,41 @@ def test_output_statistics():
         corr = np.mean(y[:, :, r:] * y[:, :, :-r]) / var
         expected = np.exp(-np.pi * r * r / (4.0 * ln * ln))
         assert abs(corr - expected) < 0.08, (r, corr, expected)
+
+
+# --------------------------------------------------------------------------
+# Statistics of the generator at small sizes (fast companions of the slow
+# test above; float32, the production dtype)
+# --------------------------------------------------------------------------
+
+def _gen(seed=0, t0=0, nsteps=32, jma=24, kma=16, nf=3, ln=1.5):
+    return np.asarray(filters.generate_correlated_noise(
+        jax.random.key(seed), t0, nsteps, jma, kma, nf, nf, nf, ln, ln, ln,
+        num_components=3, dtype=jnp.float32))
+
+
+def test_unit_variance_and_zero_mean():
+    """Normalized taps preserve the unit variance of the +/-sqrt(3) noise
+    (digitalfilters.py:73-89 normalization)."""
+    y = _gen(nsteps=64, jma=32, kma=32)
+    assert abs(y.var() - 1.0) < 0.15, y.var()
+    assert abs(y.mean()) < 0.05
+
+
+def test_spatial_correlation_matches_taps():
+    """Adjacent-z correlation equals the tap autocorrelation
+    sum(b[i] b[i+1]) — the closed form of a unit-variance white input
+    through the normalized filter."""
+    nf, ln = 4, 2.0
+    y = _gen(nsteps=48, jma=32, kma=48, nf=nf, ln=ln)
+    b = np.asarray(filters.gaussian_fir_coeffs(nf, ln, np.float32))
+    expected = float((b[:-1] * b[1:]).sum())
+    prod = (y[..., :-1] * y[..., 1:]).mean() / y.var()
+    assert abs(prod - expected) < 0.1, (prod, expected)
+
+
+def test_components_decorrelated():
+    y = _gen(nsteps=48, jma=32, kma=32)
+    c01 = np.corrcoef(y[0].ravel(), y[1].ravel())[0, 1]
+    c02 = np.corrcoef(y[0].ravel(), y[2].ravel())[0, 1]
+    assert abs(c01) < 0.05 and abs(c02) < 0.05

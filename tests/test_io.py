@@ -132,3 +132,16 @@ def test_temporal_modes_roundtrip(tmp_path, rng):
     paths = prf_io.write_temporal_modes(str(tmp_path), 3, 0.1, tm)
     back = prf_io.read_temporal_modes(paths)
     np.testing.assert_allclose(back, tm, rtol=1e-9)
+
+
+def test_hdf5_without_h5py_fails_before_the_run(monkeypatch, tmp_path):
+    """-5 on a host without h5py stops at start-up with an error naming the
+    missing package (None in sys.modules makes its import fail)."""
+    import sys
+
+    from pods_digital_filter_tpu import cli
+
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
+        cli.main(["-5", "-n", "4", "--outdir", str(tmp_path / "o")])
+    assert not (tmp_path / "o").exists()

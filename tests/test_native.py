@@ -132,3 +132,15 @@ def test_solver_stub_links_and_runs(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "OK np=30 nvars=3 nm=3" in out.stdout
     assert out.stdout.count("step ") == 5
+
+
+def test_library_name_follows_source_contents(tmp_path):
+    """A library built from other sources is never reused: its file name
+    carries a hash of the C source it was built from."""
+    src = tmp_path / "x.c"
+    src.write_text("int f(void) { return 1; }\n")
+    first = native.library_name(str(src), "libx.so")
+    assert first.startswith("libx-") and first.endswith(".so")
+    assert native.library_name(str(src), "libx.so") == first
+    src.write_text("int f(void) { return 2; }\n")
+    assert native.library_name(str(src), "libx.so") != first

@@ -190,3 +190,25 @@ def test_two_point_correlation_length_scale(tmp_path):
         expected = float((b[:-sep] * b[sep:]).sum())
         meas = (y[..., :-sep] * y[..., sep:]).mean() / y.var()
         assert abs(meas - expected) < 0.06, (sep, meas, expected)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--platform", "rocm"], ["--platform", "metal"], ["--pallas"]])
+def test_cli_rejects_removed_options(argv, capsys):
+    from pods_digital_filter_tpu import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.build_parser().parse_args(argv)
+    assert e.value.code == 2
+    assert argv[-1] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+def test_cli_platform_choices(platform):
+    from pods_digital_filter_tpu import cli
+
+    parser = cli.build_parser()
+    assert parser.parse_args(["--platform", platform]).platform == platform
+    choices = next(a.choices for a in parser._actions
+                   if a.dest == "platform")
+    assert choices == ["cpu", "gpu"]

@@ -126,8 +126,6 @@ def test_config_validation_rejects_bad_combos(tmp_path):
     with pytest.raises(ValueError, match="kma"):
         _cfg(tmp_path, plane=PlaneConfig(jma=9, kma=9, res=0.1),
              shard_space=4).validate()
-    with pytest.raises(ValueError, match="pallas"):
-        _cfg(tmp_path, shard_time=2, use_pallas=True).validate()
     with pytest.raises(ValueError, match="checkpoint"):
         _cfg(tmp_path, shard_time=2,
              checkpoint_dir=str(tmp_path / "ck")).validate()

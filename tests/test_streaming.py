@@ -198,28 +198,57 @@ def test_cache_rejected_with_sharding(tmp_path):
 
 
 def test_gram_hbm_estimate_and_warning(tmp_path):
-    """The analytic Gram-pass HBM estimator reproduces the measured
-    flagship behavior (1024x512 plane, block 512, f32, nfx=8, Ns=10240):
-    group=1 (12.5 GiB: panel + column block + generation transients +
-    device Gram accumulator) fits under the 14.5 GiB warn threshold,
-    group=2 (15.6 GiB) exceeds it — and the pre-run UserWarning fires for
-    the latter."""
+    """The analytic Gram-pass estimator at the flagship shape (1024x512
+    plane, block 512, f32, nfx=8, Ns=10240): group=1 (12.5 GiB: panel +
+    column block + generation transients + device Gram accumulator) sits
+    under a 14.5 GiB allocation limit, group=2 (15.6 GiB) above it — and
+    the pre-run UserWarning fires for the latter."""
     np3 = 3 * 1024 * 512
+    limit = int(14.5 * 2 ** 30)
     fits = streaming.gram_pass_hbm_estimate(np3, 512, 1, 4, 8, 10240)
     oom = streaming.gram_pass_hbm_estimate(np3, 512, 2, 4, 8, 10240)
-    assert fits < streaming.HBM_WARN_BYTES < oom
+    assert fits < limit < oom
 
     import warnings
 
     with warnings.catch_warnings():
         warnings.simplefilter("error")          # group=1, sane block: quiet
-        streaming._warn_gram_hbm(np3, 512, 1, 4, 8, 10240)
+        streaming._warn_gram_hbm(np3, 512, 1, 4, 8, 10240, limit)
     with pytest.warns(UserWarning, match="gram_group 2"):
-        streaming._warn_gram_hbm(np3, 512, 2, 4, 8, 10240)
-    # round-4 verdict weak #4: an oversized --streaming_block must warn at
-    # the DEFAULT group too — same mid-pass ResourceExhausted failure mode
+        streaming._warn_gram_hbm(np3, 512, 2, 4, 8, 10240, limit)
+    # an oversized --streaming_block must warn at the DEFAULT group too —
+    # same mid-pass out-of-memory failure mode
     with pytest.warns(UserWarning, match="gram_group 1"):
-        streaming._warn_gram_hbm(np3, 2048, 1, 4, 8, 10240)
+        streaming._warn_gram_hbm(np3, 2048, 1, 4, 8, 10240, limit)
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("stats, warns", [
+    ({"bytes_limit": 8 * 2 ** 30, "bytes_in_use": 0}, True),
+    (None, False),
+])
+def test_gram_warning_follows_device_limit(stats, warns):
+    """The warning budget is the device's own ``bytes_limit``: an 8 GiB
+    limit warns for the 12.5 GiB flagship pass; a backend without memory
+    statistics (the CPU) has no budget and never warns."""
+    import warnings
+
+    limit = streaming.device_memory_limit(_FakeDevice(stats))
+    assert limit == (None if stats is None else stats["bytes_limit"])
+    np3 = 3 * 1024 * 512
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        streaming._warn_gram_hbm(np3, 512, 1, 4, 8, 10240, limit)
+    assert bool(rec) == warns, [str(w.message) for w in rec]
+    if warns:
+        assert "8.0 GiB allocation limit" in str(rec[0].message)
 
 
 def test_streaming_eig_mode_topk_model_parity(tmp_path):
@@ -299,14 +328,20 @@ def test_deferred_spectrum_shrink_redo(tmp_path):
 
 def test_flagship_default_gram_config_fits_budget():
     """The shipped flagship Gram configuration (block 128 x group 12,
-    benchmarks/bench_flagship.py) must sit inside the HBM warn budget with
-    fragmentation headroom — including the round-5 device-resident
-    (Ns, Ns) Gram accumulator and in-flight async strip slices."""
+    benchmarks/bench_flagship.py) must fit, with fragmentation headroom,
+    inside the allocation limit JAX grants by default on an 80 GB card
+    (three quarters of it) — including the device-resident (Ns, Ns) Gram
+    accumulator and in-flight async strip slices — and must not warn."""
+    import warnings
+
     np3 = 3 * 1024 * 512
+    limit = int(0.75 * 80e9)
     est12 = streaming.gram_pass_hbm_estimate(np3, 128, 12, 4, 8, 10240)
-    assert est12 < streaming.HBM_WARN_BYTES
-    # headroom: at least 2 GiB under the warn line at the default
-    assert streaming.HBM_WARN_BYTES - est12 > 2 * 2 ** 30
+    # headroom: at least 2 GiB under the limit at the default
+    assert limit - est12 > 2 * 2 ** 30
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        streaming._warn_gram_hbm(np3, 128, 12, 4, 8, 10240, limit)
 
 
 def test_run_pipeline_defer_finalize(tmp_path):

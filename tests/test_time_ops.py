@@ -92,7 +92,7 @@ def test_cross_stress_layout():
 
 def test_phase_average_sharded_time_axis():
     """The whole computation jits over a snapshot matrix sharded on the
-    't' mesh axis — the TPU replacement for the RMA window fetches."""
+    't' mesh axis — the collective replacement for the RMA window fetches."""
     mesh = make_mesh(shard_time=4, shard_space=2)
     npts, ns = 4, 32
     dt = 0.1
